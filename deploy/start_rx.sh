@@ -3,7 +3,7 @@
 # Ground-station RX entrypoint — operator-compatible with the reference's
 # start_rx.sh / start_rx_headless.sh (same edit-the-header variables, same
 # SDR tuning-offset formula, start_rx.sh:10-68,103-108), launching the
-# single-process TPU pipeline instead of the 4-process shell chain.
+# single-process JAX pipeline instead of the 4-process shell chain.
 #
 #   rtl_sdr -> python -m wenet_tpu rx -   (demod+LDPC+router in one program)
 #

@@ -1,4 +1,4 @@
-/* Test-only oracle driver: wraps the reference run_ldpc_decoder so the TPU
+/* Test-only oracle driver: wraps the reference run_ldpc_decoder so the JAX
  * decoder can be compared against the C sum-product implementation.
  *
  * Build (see tests/refbins.py):

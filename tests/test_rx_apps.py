@@ -138,7 +138,7 @@ def test_web_server_events_and_image(tmp_path):
         c = http.client.HTTPConnection("127.0.0.1", srv.port, timeout=5)
         c.request("GET", "/")
         r = c.getresponse()
-        assert r.status == 200 and b"Wenet TPU" in r.read()
+        assert r.status == 200 and b"Wenet Receiver" in r.read()
 
         # image endpoint
         img = tmp_path / "x.jpg"

@@ -7,8 +7,9 @@ artifact `tests/golden/per_table_{mode}.json` — packets/bytes decoded per
 point, the same metric the reference's harness records ("bytes of
 CRC-valid output" per degraded file, test_demod.py:118).
 
-tests/test_per_table.py regenerates the table with the same seeds and
-fails if sensitivity regresses anywhere on the cliff.
+tests/test_per_table.py (on the CPU) and chip_smoke.py (on the GPU)
+regenerate the table with the same seeds and fail, through
+`golden_failures`, if sensitivity regresses anywhere on the cliff.
 
 Usage:
   python tools/per_table.py             # regenerate golden artifacts
@@ -18,7 +19,6 @@ import argparse
 import json
 import os
 import sys
-import time
 
 import numpy as np
 
@@ -62,15 +62,38 @@ def sweep(mode: str, log=lambda *a: None):
         rng = np.random.default_rng(SEED_BASE + int(ebno * 10))
         raw, payloads = make_flight_capture(cfg, mode, PACKETS, rng, ebno)
         rx = Receiver(mode=mode, cfg=cfg)
-        t0 = time.time()
         got = rx.decode_iq(fsk.iq_from_cu8(raw))
         ok = sum(1 for p in got if p in payloads)
         rows.append({"ebno_db": ebno, "packets_ok": ok,
-                     "bytes_ok": 256 * ok, "runtime_s": round(
-                         time.time() - t0, 2)})
+                     "bytes_ok": 256 * ok})
         log(f"  {mode} {ebno:5.1f} dB: {ok:2d}/{PACKETS} packets")
     return {"mode": mode, "Fs": cfg.Fs, "Rs": cfg.Rs, "packets": PACKETS,
             "seed_base": SEED_BASE, "grid": GRID, "rows": rows}
+
+
+def golden_failures(table, golden) -> list:
+    """What in `table` breaks the committed `golden`: the same grid, each
+    point within +-2 packets (absorbs cross-platform float drift in the
+    demod and BP near the cliff while catching real sensitivity loss), and
+    the hard cliff invariants (the synthetic-AWGN channel sits ~1.5 dB
+    below the reference's real-capture table).  Empty when it passes."""
+    mode = table["mode"]
+    fails = []
+    if table["grid"] != golden["grid"]:
+        fails.append(f"{mode}: grid differs from the golden")
+    if table["packets"] != golden["packets"]:
+        fails.append(f"{mode}: packet count differs from the golden")
+    for new, old in zip(table["rows"], golden["rows"]):
+        if abs(new["packets_ok"] - old["packets_ok"]) > 2:
+            fails.append(f"{mode} @ {new['ebno_db']} dB: "
+                         f"{new['packets_ok']} vs golden {old['packets_ok']}")
+    by_ebno = {r["ebno_db"]: r["packets_ok"] for r in table["rows"]}
+    n = table["packets"]
+    if not all(by_ebno[e] == 0 for e in (5.0, 5.5, 6.0)):
+        fails.append(f"{mode}: floor leak below 6 dB")
+    if not all(by_ebno[e] >= n - 1 for e in by_ebno if e >= 8.5):
+        fails.append(f"{mode}: sensitivity regression above the cliff")
+    return fails
 
 
 def main():
@@ -87,12 +110,9 @@ def main():
         if args.check and os.path.exists(path):
             with open(path) as f:
                 golden = json.load(f)
-            for new, old in zip(table["rows"], golden["rows"]):
-                if abs(new["packets_ok"] - old["packets_ok"]) > 2:
-                    print(f"REGRESSION {mode} @ {new['ebno_db']} dB: "
-                          f"{new['packets_ok']} vs golden "
-                          f"{old['packets_ok']}")
-                    rc = 1
+            for msg in golden_failures(table, golden):
+                print(f"REGRESSION {msg}")
+                rc = 1
         else:
             with open(path, "w") as f:
                 json.dump(table, f, indent=1)

@@ -1,12 +1,12 @@
-"""wenet_tpu — a TPU-native (JAX/XLA/Pallas) rebuild of the Wenet
+"""wenet_tpu — a JAX/XLA rebuild of the Wenet
 high-altitude-balloon imagery downlink framework (projecthorus/wenet).
 
-Layer map (mirrors SURVEY.md section 1, re-architected TPU-first):
+Layer map (mirrors SURVEY.md section 1, re-architected for an accelerator):
 
   core/      wire formats: framing, CRC, scramblers, LDPC code tables,
              application packet formats (pure numpy, host side)
   ops/       device compute: FSK mod/demod, LDPC encode/decode, deframing,
-             channel models (JAX + Pallas kernels)
+             channel models (JAX)
   parallel/  mesh construction, sharded Monte-Carlo sweeps, collectives
   rx/        receive application layer: packet router, SSDV assembly,
              modem stats bus, uploader/web-GUI compatible UDP emitters

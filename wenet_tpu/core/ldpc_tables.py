@@ -1,5 +1,5 @@
 """H2064_516 rate-0.8 repeat-accumulate LDPC code tables, in the dense padded
-edge layout the TPU decoder consumes.
+edge layout the batched decoder consumes.
 
 Code parameters (src/H2064_516_sparse.h:9-15): n=2580, k=2064, m=516,
 row weight <=12 (data taps), col weight <=3, repeat-accumulate parity chain.
@@ -9,7 +9,7 @@ wiring of src/mpdecode_core.c:init_c_v_nodes (:211-236).
 
 The decoder never walks a sparse graph: edges are a dense (516, 14) index
 tensor + validity mask, so check-side reductions are plain row reduces and
-var-side reductions are one scatter-add (or a one-hot matmul on the MXU).
+var-side reductions are one gather over `var_edges`.
 """
 from __future__ import annotations
 
@@ -71,29 +71,14 @@ def check_edges():
 
 
 @lru_cache(maxsize=1)
-def edges_flat():
-    """Flattened edge list and per-edge var index for scatter/gather.
-
-    Returns:
-      var_of_edge: (E,) int32  (E = number of valid edges)
-      edge_slot:   (516, 14) int32 mapping each dense slot to its flat edge id
-                   (invalid slots map to E, a dump slot)
-    """
-    var_idx, mask = check_edges()
-    var_of_edge = var_idx[mask].astype(np.int32)
-    edge_slot = np.full(var_idx.shape, var_of_edge.size, dtype=np.int32)
-    edge_slot[mask] = np.arange(var_of_edge.size, dtype=np.int32)
-    return var_of_edge, edge_slot
-
-
-@lru_cache(maxsize=1)
 def var_edges():
     """Var-side edge table: for each of the 2580 variables, the flat dense
     slot indices (into the (516*14) check-edge layout) of its incident
     edges, padded to width MAX_COL_W with a dump slot.
 
     Lets the var->check update be a pure gather (qsum = sum of messages at
-    these slots) instead of a scatter-add — the TPU-friendly direction.
+    these slots) instead of a scatter-add, which serialises on colliding
+    indices.
 
     Returns:
       slots: (CODE_LEN, MAX_COL_W) int32 indices into the flattened
@@ -116,16 +101,6 @@ def var_edges():
                 fill[v] += 1
     assert fill.max() <= MAX_COL_W
     return slots, mask
-
-
-@lru_cache(maxsize=1)
-def var_onehot_f32() -> np.ndarray:
-    """(E, CODE_LEN) one-hot scatter matrix: vars = edges @ onehot.
-    Dense f32 so the var-side reduction can ride the MXU."""
-    var_of_edge, _ = edges_flat()
-    m = np.zeros((var_of_edge.size, CODE_LEN), dtype=np.float32)
-    m[np.arange(var_of_edge.size), var_of_edge] = 1.0
-    return m
 
 
 def sanity_check():

@@ -1,11 +1,11 @@
 /* Native UW-acquisition state machine + sample-format conversion.
  *
- * Host-side runtime for the TPU build: the acquisition gating is inherently
+ * Host-side runtime of the receive chain: the acquisition gating is inherently
  * sequential (LOOK_FOR_UW / COLLECT_PACKET with a frozen bit buffer during
  * collection — reference semantics: src/wenet_ldpc.c:171-259,
  * src/drs232_ldpc.c:176-275), so it runs as one C pass over the soft-symbol
  * stream while the batched LDPC decode of the windows it finds runs on the
- * TPU.  Mirrors wenet_tpu.ops.deframe.uw_detect_positions bit-exactly
+ * accelerator.  Mirrors wenet_tpu.ops.deframe.uw_detect_positions bit-exactly
  * (parity-tested); built as a shared library via ctypes.
  */
 #include <stdint.h>

@@ -6,8 +6,8 @@ processes).
 Classic design: an N-phase decomposition of a windowed-sinc prototype
 lowpass, each phase filtering its decimated sub-stream, followed by an
 N-point (i)FFT across phases per output sample.  Channel k is centred at
-k*Fs/N (negative ks wrap).  All compute is a reshape + grouped conv + FFT —
-MXU/VPU-friendly, vmap-able over batches.
+k*Fs/N (negative ks wrap).  All compute is a reshape + grouped conv + DFT
+matmul, vmap-able over batches.
 """
 from __future__ import annotations
 
@@ -60,18 +60,17 @@ def channelize(iq: jnp.ndarray, n_channels: int,
     hp = h.reshape(taps_per_phase, N)             # hp[s, p] = h[s*N + p]
     # filter along frames per phase: y[m, p] = sum_s hp[s, p] xf[m-s, p]
     xp = jnp.pad(xf, ((taps_per_phase - 1, 0), (0, 0)))
-    # T static shifted slices instead of an advanced-indexing window
-    # gather: the gather form lowers to a ~210 MB/s scalar-ish gather on
-    # the target backend (tools/fused_where.py, r5) — slices are plain
-    # contiguous copies.  The stacked einsum keeps the identical
-    # 12-term reduction.
+    # T static shifted slices (plain contiguous copies) instead of an
+    # advanced-indexing window gather.  The stacked einsum keeps the
+    # identical 12-term reduction; HIGHEST precision because a float32
+    # product on the GPU may otherwise run in TF32 (10-bit mantissa).
     frames = x.shape[0]
     windows = jnp.stack([xp[s: s + frames] for s in range(taps_per_phase)])
-    y = jnp.einsum("tmp,tp->mp", windows, hp[::-1])
+    y = jnp.einsum("tmp,tp->mp", windows, hp[::-1],
+                   precision=jax.lax.Precision.HIGHEST)
     # sum_p y[m,p] e^{+2pi i kp/N} == DFT(y) evaluated at bin (-k) mod N.
     # The (-k) % N permutation is [0, N-1, ..., 1]: bin 0 + the reversed
     # tail — two static slices + a reverse, NOT a traced-index gather
-    # (advanced indexing lowers to a ~210 MB/s gather on this backend)
     chans = compat.dft(y)                         # (frames, N)
     chans = jnp.concatenate([chans[:, :1], chans[:, :0:-1]], axis=1)
     return jnp.swapaxes(chans, 0, 1).astype(jnp.complex64)
@@ -85,8 +84,8 @@ def channel_centres(Fs: int, n_channels: int) -> np.ndarray:
 
 
 def _select_static(chans, sel_t: tuple):
-    """Static row selection (a traced index-array gather copies the whole
-    filterbank output at ~210 MB/s on the target backend)."""
+    """Static row selection (plain slices, no traced index-array gather
+    over the whole filterbank output)."""
     if sel_t == tuple(range(chans.shape[0])):
         return chans
     return jnp.stack([chans[k] for k in sel_t])
@@ -98,8 +97,8 @@ def _wideband_fused_program(cfg, mode: str, nc: int, nf: int, kk: int,
     """Cached one-dispatch wideband program: filterbank + per-channel demod
     + top-k deframe + BP decode + CRC.  Module-level cache: a jit defined
     inside demod_multichannel is a fresh function object per CALL, so every
-    invocation re-traced and re-loaded from the XLA disk cache (~2 s) —
-    measured as a 40x wall-clock loss on the wideband bench (r5)."""
+    invocation re-traced and re-loaded the program from the XLA disk
+    cache."""
     from ..ops import deframe, fsk
 
     @jax.jit
@@ -140,7 +139,7 @@ def demod_multichannel(iq: np.ndarray, Fs_total: int, n_channels: int,
     iq at Fs_total; each channel lands at Fs_total/n_channels which must
     equal cfg.Fs.  Returns {channel_index: list_of_payloads}.
 
-    vectorized=True (the TPU-first path) runs ONE jitted program: the
+    vectorized=True (the default) runs ONE jitted program: the
     polyphase channelizer followed by the scan demod vmapped across the
     selected channels — the whole wideband front-end is a single device
     dispatch, replacing the reference's per-channel rtl_sdr+fsk_demod

@@ -1,17 +1,17 @@
-"""H2064_516 LDPC encode + batched sum-product decode, TPU-native.
+"""H2064_516 LDPC encode + batched sum-product decode (JAX).
 
 Encoder (reference: tx/ldpc_enc.c:33-48): repeat-accumulate — parity bit p is
 the running XOR of 12 tapped data bits per row.  Re-expressed as one gather +
 row-sum + cumulative-sum mod 2: O(516*12) integer work, trivially batchable.
 
 Decoder (reference: src/mpdecode_core.c:385-489 SumProduct, :494-566
-run_ldpc_decoder): sum-product belief propagation in the phi-domain.  The TPU
-formulation abandons the per-node linked structs for a dense padded edge
+run_ldpc_decoder): sum-product belief propagation in the phi-domain.  The
+batched formulation abandons the per-node linked structs for a dense padded edge
 tensor (516 checks x 14 edge slots, see core/ldpc_tables.py):
 
   * check-side reduction  = masked row reduce over the 14-slot axis
-  * var-side reduction    = scatter-add of edge messages into the 2580 vars
-                            (XLA scatter, or a one-hot matmul on the MXU)
+  * var-side reduction    = gather-sum of edge messages into the 2580 vars
+                            over the per-var edge-slot table
   * per-codeword early exit (mpdecode_core.c:473-483) = convergence mask —
     converged codewords freeze their state while the batch keeps stepping,
     reproducing the exact early-exit output bits.
@@ -133,8 +133,8 @@ def decode(llr: jnp.ndarray, max_iter: int = T.MAX_ITER):
 
         # ---- Q update (var -> check), mpdecode_core.c:439-464
         # Qi = llr + sum of incoming r at each var.  Formulated as a GATHER
-        # over the per-var edge-slot table (scatter-adds serialize on TPU;
-        # gathers vectorize)
+        # over the per-var edge-slot table (a scatter-add serialises on
+        # colliding indices; the gather does not)
         flat_vals = (rmsg * fmask).reshape(B, -1)
         qsum = jnp.sum(flat_vals[:, vslots] * vfmask, axis=-1)
         qi = llr + qsum                                          # (B, 2580)
@@ -194,8 +194,7 @@ def decode_minsum(llr: jnp.ndarray, max_iter: int = T.MAX_ITER,
     `decode`, but the check-node update is the standard normalized
     min-sum approximation (r = scale · sign-product · min-excluded |q|)
     instead of the phi-domain sum-product.  No transcendentals anywhere
-    in the iteration, so the VPU runs pure compare/select/add — measured
-    meaningfully faster per iteration on TPU than the phi0 log/tanh path.
+    in the iteration: pure compare/select/add, no log/tanh per edge.
 
     NOT the reference algorithm (mpdecode_core.c is sum-product): packet
     decisions can differ near threshold by a fraction of a dB — use

@@ -21,43 +21,26 @@ def make_mesh_2d(dp: int, tp: int, axes=("batch", "model")) -> Mesh:
 
 
 def make_hybrid_mesh(tp: int = 1, axes=("batch", "model")) -> Mesh:
-    """DCN x ICI-aware 2-D mesh for multi-host pod slices.
+    """2-D (batch, model) mesh over every device of every process.
 
-    The model (tensor-parallel) axis must ride ICI — its per-BP-iteration
-    psums are latency-critical — while the batch axis tolerates DCN. On
-    multi-process runs this uses mesh_utils.create_hybrid_device_mesh with
-    tp packed innermost (within a host's slice); single-process runs fall
-    back to a local reshape with the same axis semantics, so programs
-    written against this mesh run unchanged from laptop to pod.
+    jax.devices() is ordered by process, so the reshape keeps each
+    tensor-parallel group of `tp` devices inside one process whenever tp
+    divides the per-process device count: the per-BP-iteration psums of
+    the model axis then stay within a host.
     """
     n = len(jax.devices())
     if n % tp:
         raise ValueError(f"tp={tp} does not divide {n} devices")
-    if jax.process_count() > 1:
-        from jax.experimental import mesh_utils
-        per_host = n // jax.process_count()
-        if per_host % tp == 0:
-            try:
-                devs = mesh_utils.create_hybrid_device_mesh(
-                    (per_host // tp, tp), (jax.process_count(), 1))
-                return Mesh(devs.reshape(n // tp, tp), axes)
-            except ValueError:
-                # no slice topology metadata (e.g. multi-process CPU, some
-                # single-slice configurations): jax.devices() is ordered by
-                # process, so the plain reshape below still keeps each tp
-                # group within one process's devices — the ICI-local
-                # property the hybrid mesh exists for
-                pass
     return Mesh(np.array(jax.devices()).reshape(n // tp, tp), axes)
 
 
 def init_distributed(coordinator: str | None = None,
                      num_processes: int | None = None,
                      process_id: int | None = None) -> int:
-    """Multi-host bring-up (`jax.distributed.initialize`) for pod-slice
-    sweeps: capture batches and Monte-Carlo points are sharded over the
-    global mesh (psum counters ride ICI within a slice, DCN across hosts).
-    On single-host systems this is a no-op.  Returns the process count."""
+    """Multi-process bring-up (`jax.distributed.initialize`) for sweeps
+    over several hosts: capture batches and Monte-Carlo points are sharded
+    over the global mesh.  A no-op for one process.  Returns the process
+    count."""
     if num_processes is not None and num_processes > 1:
         jax.distributed.initialize(coordinator_address=coordinator,
                                    num_processes=num_processes,

@@ -1,9 +1,9 @@
 """Tensor-parallel LDPC decode: check rows sharded across a mesh axis.
 
-SURVEY.md §2.3 TP row: when batch x edges exceeds one chip's tiling budget,
-the (516 x 14) check-side message tensors are sharded over the 'model' mesh
-axis; the var-side reduction — each shard scatter-adds its edges into the
-full 2580-var axis — is completed with one psum over ICI per iteration.
+SURVEY.md §2.3 TP row: the (516 x 14) check-side message tensors are
+sharded over the 'model' mesh axis; the var-side reduction — each shard
+scatter-adds its edges into the full 2580-var axis — is completed with one
+psum over that axis per iteration.
 Semantics identical to ops/ldpc.decode (same early-exit masking).
 """
 from __future__ import annotations

@@ -27,12 +27,12 @@ from ..core import packets as wp
 logger = logging.getLogger("wenet_tpu.rx.web")
 
 INDEX_HTML = """<!DOCTYPE html>
-<html><head><title>Wenet TPU RX</title><style>
+<html><head><title>Wenet RX</title><style>
 body{font-family:sans-serif;margin:1em;background:#111;color:#eee}
 #img{max-width:100%%}.stat{display:inline-block;margin-right:2em}
 pre{background:#222;padding:.5em;overflow-x:auto}
 </style></head><body>
-<h2>Wenet TPU Receiver</h2>
+<h2>Wenet Receiver</h2>
 <div><span class=stat>SNR: <b id=snr>-</b> dB</span>
 <span class=stat>ppm: <b id=ppm>-</b></span>
 <span class=stat>Position: <b id=pos>-</b></span>

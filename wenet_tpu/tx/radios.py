@@ -5,7 +5,7 @@ modulation (tx/radio_wrappers.py).  Here the radio abstraction keeps the
 same contract — `scramble(body)`, `transmit_packet(frame)`, `shutdown()` —
 with software backends:
 
-  * IQRadio        — synthesizes the actual FSK IQ waveform (the TPU-native
+  * IQRadio        — synthesizes the actual FSK IQ waveform (the in-process
                      "transmitter"): continuous phase across packets, sink =
                      file / callback / in-memory buffer
   * BinaryDebugRadio — one-byte-per-bit files for the C fsk modulator

@@ -1,7 +1,7 @@
 """Internal-signal tracing (src/modem_probe.c equivalent).
 
 The reference compiles optional named-trace hooks into the C demod and
-dumps an Octave workspace (modem_probe.c:62-141).  The functional TPU demod
+dumps an Octave workspace (modem_probe.c:62-141).  The functional JAX demod
 makes this trivial: `probe_demod` re-runs the per-frame step over a capture
 collecting named intermediate arrays — no recompilation flags, no global
 state — and `save_npz` replaces the Octave dump with an .npz workspace.
